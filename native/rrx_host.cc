@@ -1,8 +1,8 @@
-// rrx_host — native host runtime for roaringregex_tpu.
+// rrx_host — native host runtime for roaringregex.
 //
 // The reference implements its whole compiler in C++ (Parser.cpp: stack
 // machine; NFA.cc: epsilon-eliminating combinators). This library is the
-// TPU framework's native equivalent of those host-side components:
+// framework's native equivalent of those host-side components:
 //
 //  * POSIX-ERE parser -> Glushkov position NFA (the graph-builder): emits
 //    the logical NFA (follow edges, position labels, accept set) through a
@@ -524,7 +524,7 @@ void rrx_free(RrxProgram* p) { delete p; }
 // (the capability the reference ships as librregex.a — its per-byte
 // Processor::shift row-union hot loop, NFA.cc:72-102 — here with 32-bit
 // state ids and working anchors). Used by the CLI / library when no device
-// runtime is wanted; the TPU kernels remain the production path.
+// runtime is wanted; the device engine remains the production path.
 // ---------------------------------------------------------------------------
 
 // Lazily built subset DFA over uint64 bitsets (S <= 64): memoizes

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-import roaringregex_tpu as rrx
-from roaringregex_tpu.oracle.engine import OracleEngine
+import roaringregex as rrx
+from roaringregex.oracle.engine import OracleEngine
 
 TEXTS = ["", "a", "abc", "xxabyyabz", "aaab", "catdog", "the dog barks",
          "ba", "abab", "a.b", "ccd", "hello world", "aaaa"]

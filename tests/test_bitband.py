@@ -1,23 +1,23 @@
-"""Bit-packed band+rank-1+triangle sparse kernels (ops/scan_bitband.py).
+""">256-state band-structured automata on the plain XLA route.
 
-The sparse tier's production path on decomposable structure: u32
-shift/AND/OR VPU kernels instead of per-container MXU matmuls. Parity is
-checked three ways: against the oracle, against the container kernels
-(RRX_BITBAND=0 A/B), and on the span/reverse primitives.
+``{m,n}`` shapes whose follow matrix is a few diagonals plus an
+optional-tail skip triangle scan through the unpacked XLA engine (sparse
+tier) or the packed engine (multiblock tier), and must agree with the
+oracle on counts, fullmatch and spans.
 """
 import numpy as np
 import pytest
 
-from roaringregex_tpu.api import Pattern
-from roaringregex_tpu.oracle.engine import OracleEngine
-from roaringregex_tpu.utils.config import get_config, set_config
+from roaringregex.api import Pattern
+from roaringregex.oracle.engine import OracleEngine
+from roaringregex.utils.config import get_config, set_config
 
 
 @pytest.fixture
 def sparse_cfg():
-    """Force the raw sparse kernels: no seeded alias, no prefilter, and a
+    """Force the raw sparse scan: no seeded alias, no prefilter, and a
     low dense_max so moderately sized test patterns hit the sparse tier
-    (CPU interpret mode cannot afford 1500-state automata per case)."""
+    (the CPU cannot afford 1500-state automata per case)."""
     base = get_config()
     set_config(
         base.with_(seeded_alias=False, sparse_prefilter=False, dense_max=256)
@@ -56,12 +56,10 @@ def _texts(pattern, alpha, rng, n=8):
 
 @pytest.mark.parametrize("pattern,alpha", CASES)
 def test_bitband_oracle_parity(pattern, alpha, sparse_cfg):
-    from roaringregex_tpu.ops.scan_bitband import BitbandScanner
-
     p = Pattern(pattern, backend="pallas")
     assert p.tier == "sparse", p.program.n_states
-    if not isinstance(p.engine.device_scanner, BitbandScanner):
-        pytest.skip("structure not decomposable (or counting tier)")
+    assert p.engine.backend == "xla"
+    assert p.engine.route.kernel in (None, "count")
     orc = OracleEngine(p.program.nfa)
     rng = np.random.default_rng(7)
     texts = _texts(pattern, alpha, rng)
@@ -76,65 +74,6 @@ def test_bitband_oracle_parity(pattern, alpha, sparse_cfg):
     assert p.finditer_batch([t], longest=True)[0] == orc.findall(
         t, longest=True
     ), pattern
-
-
-def test_bitband_vs_container_ab(sparse_cfg):
-    """RRX_BITBAND=0 A/B: the container kernels and the bit kernels are
-    the same function."""
-    pat = "x(ab|c){100,120}y"
-    rng = np.random.default_rng(11)
-    texts = _texts(pat, "xabcy", rng, n=6)
-    p1 = Pattern(pat, backend="pallas")
-    c1 = [int(x) for x in p1.count_batch(texts)]
-    f1 = [bool(x) for x in p1.fullmatch_batch(texts)]
-    base = get_config()
-    set_config(base.with_(bitband=False))
-    try:
-        p0 = Pattern(pat, backend="pallas")
-        from roaringregex_tpu.ops.scan_bitband import BitbandScanner
-        from roaringregex_tpu.ops.scan_pallas import SparseScanner
-
-        assert isinstance(p1.engine.device_scanner, BitbandScanner)
-        assert type(p0.engine.device_scanner) is SparseScanner
-        assert c1 == [int(x) for x in p0.count_batch(texts)]
-        assert f1 == [bool(x) for x in p0.fullmatch_batch(texts)]
-    finally:
-        set_config(base)
-
-
-def test_bitband_spec_structure(sparse_cfg):
-    """The decomposition finds the expected shape on the config-10 class
-    and stays exact (verified edge cover)."""
-    from roaringregex_tpu.compiler.program import compile_program
-    from roaringregex_tpu.ops.scan_bitband import (
-        _tri_structure,
-        bitband_spec,
-    )
-
-    prog = compile_program("x(ab|c){100,120}y")
-    spec = bitband_spec(prog)
-    assert spec is not None
-    assert spec.diags == (1, 2, 3, 4)
-    assert spec.tri_gaps  # the optional-tail skip triangle
-    # exact cover: every follow edge is reproduced by some component
-    e = prog.nfa.get_edges()
-    F = prog.nfa.follow_matrix
-    covered = np.zeros_like(F)
-    src, dst = e[:, 0].astype(int), e[:, 1].astype(int)
-    for d in spec.diags:
-        on = dst - src == d
-        covered[src[on], dst[on]] = 1
-    for (w, b) in spec.rank1:
-        covered[:, w * 32 + b] = np.maximum(
-            covered[:, w * 32 + b], F[:, w * 32 + b]
-        )
-    E, fams = _tri_structure(prog, spec)
-    for g, cols in fams.items():
-        for p in cols:
-            q = E[E < p - g]
-            assert F[q, p].all(), "triangle lights a non-edge"
-            covered[q, p] = 1
-    assert (covered >= F).all(), "decomposition misses edges"
 
 
 def test_bitband_fuzz_vs_oracle(sparse_cfg):
@@ -166,16 +105,15 @@ def test_bitband_fuzz_vs_oracle(sparse_cfg):
 
 
 def test_bitband_multiblock_tier():
-    """256 < S <= 1024 context-wrapped {m,n} patterns (the container-
-    favored multiblock family) route to the bit kernels too."""
-    from roaringregex_tpu.ops.scan_bitband import BitbandScanner
-
+    """256 < S <= 1024 context-wrapped {m,n} patterns (the multiblock
+    family) route to the packed engine."""
     base = get_config()
     set_config(base.with_(seeded_alias=False))
     try:
         p = Pattern("x(ab|c){100,120}y", backend="pallas")
         assert p.tier == "multiblock"
-        assert isinstance(p.engine.device_scanner, BitbandScanner)
+        assert p.engine.backend == "packed"
+        assert p.engine.device_scanner is None
         orc = OracleEngine(p.program.nfa)
         rng = np.random.default_rng(17)
         texts = ["x" + "ab" * 50 + "c" * 15 + "y", ""]

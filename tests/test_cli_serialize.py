@@ -6,13 +6,13 @@ import sys
 import numpy as np
 import pytest
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.compiler.serialize import (
+from roaringregex.compiler.program import compile_program
+from roaringregex.compiler.serialize import (
     cached_compile,
     load_program,
     save_program,
 )
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.oracle.engine import OracleEngine
 
 
 # ---------------------------------------------------------------------------
@@ -75,7 +75,7 @@ def test_cached_compile_corrupt_file_recompiles(tmp_path):
 
 
 def _run_cli(args, stdin: bytes):
-    from roaringregex_tpu import cli
+    from roaringregex import cli
 
     class _FakeStdin:
         def __init__(self, data: bytes):
@@ -143,7 +143,7 @@ def test_cli_files_and_stats(tmp_path):
 
 def test_cli_subprocess_smoke():
     r = subprocess.run(
-        [sys.executable, "-m", "roaringregex_tpu.cli", "-c", "b+"],
+        [sys.executable, "-m", "roaringregex.cli", "-c", "b+"],
         input=b"abc\nbbb\nxyz\n",
         capture_output=True,
         timeout=300,
@@ -170,7 +170,7 @@ def test_cli_multi_pattern():
 
 def test_cli_host_backend():
     """--backend host: self-contained native CPU scan, no device engine."""
-    from roaringregex_tpu.compiler import native
+    from roaringregex.compiler import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -213,7 +213,7 @@ def test_cli_long_mode(tmp_path):
 def test_cli_host_multi_pattern():
     """--backend host -e P1 -e P2: grep-style union via per-pattern
     native grep_lines."""
-    from roaringregex_tpu.compiler import native
+    from roaringregex.compiler import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -233,14 +233,14 @@ def test_cli_host_multi_pattern():
 def test_cli_long_spans_cyclic(tmp_path, capsys):
     """--long -o over a cyclic pattern: the reversed-program span path
     through the CLI."""
-    from roaringregex_tpu.cli import main
+    from roaringregex.cli import main
 
     f = tmp_path / "blob.bin"
     f.write_bytes(b"zz" + b"ab" * 6 + b"c" + b"qqq" + b"abc" + b"x" * 40)
     rc = main(["(ab)*c", str(f), "--long", "-o"])
     out = capsys.readouterr().out.strip().splitlines()
     assert rc == 0
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     want = OracleEngine.compile("(ab)*c").findall(f.read_bytes())
     spans_txt = out[0].rsplit(":", 1)[-1]

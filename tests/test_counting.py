@@ -1,25 +1,20 @@
-"""Counting-tier and banded-diagonal kernel tests.
+"""Counting-tier tests.
 
 ``X{m,n}`` single-class repetitions (the family the reference's broken
 Roaring tier targets, Parser.cpp:165-168) run on the run-length
-CountScanner — one int32 per record instead of a lanes^2 follow matmul.
-Banded follow matrices (long literal chains) use diagonal shift+multiply
-kernels. Both must match the oracle exactly, including the span
-fallback paths (ends/starts bitmaps, finditer).
+CountScanner (ops/scan_count.py) — one int32 per record instead of a
+lanes^2 follow matmul. Long literal chains stay on the packed engine.
+Both must match the oracle exactly, including the span fallback paths
+(ends/starts bitmaps, finditer).
 """
 import numpy as np
 import pytest
 
-from roaringregex_tpu.api import Pattern
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.engine import ScanEngine
-from roaringregex_tpu.ops.scan_pallas import (
-    CountScanner,
-    PallasScanner,
-    banded_offsets,
-    counting_plan,
-)
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.api import Pattern
+from roaringregex.compiler.program import compile_program
+from roaringregex.engine import ScanEngine
+from roaringregex.ops.scan_count import CountScanner, counting_plan
+from roaringregex.oracle.engine import OracleEngine
 
 COUNTING = ["a{1,300}", "a{3,280}", "[a-c]{2,400}", "a{270,}", "x{0,300}",
             "a{300}", "a{3,1200}",
@@ -55,7 +50,7 @@ def test_counting_plan_detected(pattern):
     prog = compile_program(pattern)
     assert counting_plan(prog) is not None
     eng = ScanEngine(prog, backend="pallas")
-    assert isinstance(eng._pallas, CountScanner)
+    assert isinstance(eng.device_scanner, CountScanner)
 
 
 @pytest.mark.parametrize("pattern", ["cat|dog", "(ab)*", "a{2,4}", "a*b{1,300}"])
@@ -89,7 +84,7 @@ def test_counting_stats_oracle_parity(pattern):
 )
 def test_counting_bitmaps_and_spans(pattern):
     pat = Pattern(pattern, backend="pallas")
-    assert isinstance(pat.engine._pallas, CountScanner)
+    assert isinstance(pat.engine.device_scanner, CountScanner)
     orc = OracleEngine.compile(pattern)
     rng = np.random.default_rng(9)
     texts = [
@@ -134,8 +129,8 @@ def test_banded_literal_chain():
     prog = compile_program(lit)
     assert prog.tier == "multiblock"
     eng = ScanEngine(prog, backend="pallas")
-    sc = eng._pallas
-    assert isinstance(sc, PallasScanner) and sc.diag_ks == (1,)
+    # no counting plan, more than 32 states: the packed engine serves it
+    assert eng.device_scanner is None and eng.backend == "packed"
     orc = OracleEngine.compile(lit)
     texts = [lit.encode(), (lit + "x").encode(), ("xx" + lit).encode(),
              lit[:100].encode(), (lit + lit).encode(), b"zzz", b""]
@@ -146,15 +141,6 @@ def test_banded_literal_chain():
         ends = orc.ends(t)
         assert int(np.asarray(cnt).reshape(-1)[i]) == len(ends), i
         assert bool(fm[i]) == orc.fullmatch(t), i
-
-
-def test_banded_offsets_shapes():
-    F = np.zeros((8, 8), np.uint8)
-    for i in range(7):
-        F[i, i + 1] = 1
-    assert banded_offsets(F.T, 4) == (1,)
-    assert banded_offsets(np.zeros((4, 4)), 4) is None
-    assert banded_offsets(np.triu(np.ones((8, 8)), 1).T, 4) is None
 
 
 # ---------------------------------------------------------------------------
@@ -192,14 +178,14 @@ def test_stride_k_plan_detected(pattern):
     m, n, branches = plan
     assert len(branches[0]) >= 2  # body length k (per-branch)
     eng = ScanEngine(prog, backend="pallas")
-    assert isinstance(eng._pallas, CountScanner)
+    assert isinstance(eng.device_scanner, CountScanner)
 
 
 @pytest.mark.parametrize("pattern", STRIDE_K)
 def test_stride_k_stats_oracle_parity(pattern):
     prog = compile_program(pattern)
     eng = ScanEngine(prog, backend="pallas")
-    assert isinstance(eng._pallas, CountScanner)
+    assert isinstance(eng.device_scanner, CountScanner)
     orc = OracleEngine.compile(pattern)
     data, lens = _pack(_ktexts(np.random.default_rng(11)))
     cnt, first, anym = eng.match_stats(data, lens, seeded=True)
@@ -217,7 +203,7 @@ def test_stride_k_stats_oracle_parity(pattern):
 @pytest.mark.parametrize("pattern", ["(ab){2,80}", "(abc){1,50}", "(ab){0,80}"])
 def test_stride_k_bitmaps_and_spans(pattern):
     pat = Pattern(pattern, backend="pallas")
-    assert isinstance(pat.engine._pallas, CountScanner)
+    assert isinstance(pat.engine.device_scanner, CountScanner)
     orc = OracleEngine.compile(pattern)
     rng = np.random.default_rng(13)
     texts = [
@@ -243,7 +229,7 @@ def test_stride_k_unseeded_flags():
     pat = "(ab){2,120}"
     prog = compile_program(pat)
     eng = ScanEngine(prog, backend="pallas")
-    assert isinstance(eng._pallas, CountScanner)
+    assert isinstance(eng.device_scanner, CountScanner)
     orc = OracleEngine.compile(pat)
     texts = [b"abab", b"ab", b"", b"ababx", b"ab" * 121, b"ab" * 120,
              b"ab" * 7, b"aab"]
@@ -289,8 +275,8 @@ def test_stride_k_fuzz_vs_oracle():
         if plan is None:
             continue
         tried += 1
-        # fuzz the counting kernels directly, even where ScanEngine would
-        # route a small-S pattern to the (faster) packed matrix tier
+        # fuzz the run-length scanner directly, even where ScanEngine
+        # would route a small-S pattern to the packed matrix tier
         cs = CountScanner(prog, plan)
         orc = OracleEngine.compile(pat)
         texts = [

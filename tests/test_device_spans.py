@@ -1,15 +1,16 @@
 """Device-side span enumeration (O(1)-dispatch finditer) vs the oracle.
 
-Lazy policy: single span kernel (claim/anchor/emit in-kernel after one
-reverse pass). Greedy policy: device-side while_loop of longest-end
-anchored rescans. Both must agree byte-for-byte with OracleEngine.finditer
-and with the host-driven round loop of the non-pallas backends.
+Both policies run as one device program (engine.spans over
+scan_packed.spans_rounds: one reverse pass, then a while_loop of anchored
+rescans — shortest end for lazy, longest end for greedy). Both must agree
+byte-for-byte with OracleEngine.finditer and with the host-driven round
+loop of the non-pallas backends.
 """
 import numpy as np
 import pytest
 
-from roaringregex_tpu.api import Pattern
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.api import Pattern
+from roaringregex.oracle.engine import OracleEngine
 
 PATTERNS = [
     "cat|dog",
@@ -40,7 +41,7 @@ def _texts(seed=11, n=40):
 @pytest.mark.parametrize("longest", [False, True])
 def test_device_spans_vs_oracle(pattern, longest):
     p = Pattern(pattern, backend="pallas")
-    assert p.engine._pallas is not None
+    assert p.engine.device_spans
     o = OracleEngine(p.program.nfa)
     texts = _texts()
     got = p.finditer_batch(texts, longest=longest)
@@ -64,15 +65,12 @@ def test_device_spans_match_host_rounds():
 def test_cap_presized_no_retry():
     """A pathological record (1000 matches) runs with ONE spans dispatch:
     the cap is pre-sized from a counts pass (n_spans <= distinct match
-    ends), so the old quadruple-and-recompile overflow loop never fires."""
+    ends), so the quadruple-and-recompile overflow loop never fires."""
     p = Pattern("a", backend="pallas")
-    sc = p.engine._pallas
+    eng = p.engine
     calls = []
-    orig_lazy, orig_greedy = sc.lazy_spans_b, sc.greedy_spans_b
-    sc.lazy_spans_b = lambda *a, **k: calls.append(k["cap"]) or orig_lazy(*a, **k)
-    sc.greedy_spans_b = (
-        lambda *a, **k: calls.append(k["cap"]) or orig_greedy(*a, **k)
-    )
+    orig = eng.spans
+    eng.spans = lambda *a, **k: calls.append(k["cap"]) or orig(*a, **k)
     try:
         t = b"a" * 1000  # 1000 spans >> the old initial cap of 8
         got = p.finditer_batch([t])[0]
@@ -83,4 +81,4 @@ def test_cap_presized_no_retry():
         assert got_g == [(i, i + 1) for i in range(1000)]
         assert calls == [1024], calls
     finally:
-        sc.lazy_spans_b, sc.greedy_spans_b = orig_lazy, orig_greedy
+        eng.spans = orig

@@ -9,9 +9,9 @@ import pytest
 
 import jax
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.oracle.engine import OracleEngine
-from roaringregex_tpu.parallel import DistScanner, make_mesh, shard_batch
+from roaringregex.compiler.program import compile_program
+from roaringregex.oracle.engine import OracleEngine
+from roaringregex.parallel import DistScanner, make_mesh, shard_batch
 
 
 def _pack(records, B_pad, L_pad):
@@ -92,7 +92,7 @@ def test_grep_hits(mesh):
 @pytest.mark.parametrize("pattern", ["cat|dog", "ab(cd)+e", "(cat|dog)*"])
 def test_long_string_sharded(mesh, pattern):
     """One long string sharded over the mesh must match the oracle."""
-    from roaringregex_tpu.ops.longstring import LongScanner
+    from roaringregex.ops.longstring import LongScanner
 
     prog = compile_program(pattern)
     oracle = OracleEngine(prog.nfa)
@@ -128,7 +128,7 @@ def test_per_record_spans_sharded(mesh):
 
 def test_multipattern_sharded(mesh):
     """Accept-channel multi-pattern scan under the mesh."""
-    from roaringregex_tpu.api import MultiPattern
+    from roaringregex.api import MultiPattern
 
     mp = MultiPattern(["err(or)?", "[0-9]{2}"])
     scanner = DistScanner(
@@ -141,7 +141,7 @@ def test_multipattern_sharded(mesh):
     d, l = shard_batch(mesh, data, lengths)
     _, _, any_pc = scanner.per_record(d, l, seeded=True)
     per = np.asarray(any_pc).reshape(-1, mp.P)
-    from roaringregex_tpu.compiler.nfa import build_nfa
+    from roaringregex.compiler.nfa import build_nfa
     for p, pat in enumerate(mp.patterns):
         o = OracleEngine(build_nfa(pat))
         for i, rec in enumerate(recs):
@@ -152,7 +152,7 @@ def test_long_stats_sharded_kernel_rate(mesh):
     """Kernel-rate sharded long string: overlapped windows split over the
     data axis, one psum of (body, EOS-tail) — vs the oracle, plus the
     summary-SPMD fallback for cyclic patterns."""
-    from roaringregex_tpu.utils.config import get_config, set_config
+    from roaringregex.utils.config import get_config, set_config
 
     base = get_config()
     rng = np.random.default_rng(23)
@@ -210,23 +210,22 @@ def test_long_stream_sharded_placement(mesh):
     D = mesh.devices.size
     t = bytes((np.arange(20000) % 26 + 97).astype(np.uint8))
 
-    # overlapped-window path: per-device chunk = n/D plus at most the
-    # kernel batch floor (128 rows x G windows x >=256-byte blocks)
+    # overlapped-window path: per-device chunk = n/D plus at most one
+    # packing group of G windows of <= block bytes
     ds = DistScanner(compile_program("cat|dog"), mesh)
     fls = ds._long_fast_scanner()
     assert fls is not None
     fls.block = 512
+    G = ds.prog.G
     ds.long_stats(t, mode="count")
     C, H, shard_shape = ds.last_stream_geom
     assert int(np.prod(shard_shape)) == C
-    assert C <= len(t) // D + 128 * fls.G * fls.block, (C, H)
-    # scaling: at 64 MB the chunk is ~n/D + one batch block, not O(n)
+    assert C <= len(t) // D + G * fls.block, (C, H)
+    # scaling: at 64 MB the chunk is ~n/D + one window group, not O(n)
     n_big = 64_000_000
-    blk, npw, T_pad, B_pad, B_blk, T_chunk, r, nseg, C2, H2 = ds._fls_geom(
-        n_big, fls
-    )
-    assert C2 * D + H2 >= n_big + 2, "chunks must cover the stream"
-    assert C2 <= n_big // D + B_blk * fls.G * blk, (C2, n_big // D)
+    blk, npw, C2, H2 = ds._fls_geom(n_big, fls)
+    assert C2 * D + H2 >= n_big + fls.overlap, "chunks must cover the stream"
+    assert C2 <= n_big // D + G * blk, (C2, n_big // D)
 
     # counting-window path
     dc = DistScanner(compile_program("a{1,300}"), mesh)
@@ -267,7 +266,7 @@ def test_long_stats_sharded_wide_tile(mesh):
 def test_stats_stream_sharded(mesh):
     """DistScanner.stats_stream: chunked sharded streaming == the summed
     per-chunk global_stats; per-device placement is chunk/D rows."""
-    from roaringregex_tpu.stream import StreamScanner
+    from roaringregex.stream import StreamScanner
 
     prog = compile_program("cat|dog")
     ds = DistScanner(prog, mesh)

@@ -4,9 +4,9 @@ import pytest
 
 import jax.numpy as jnp
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.engine import ScanEngine
-from roaringregex_tpu.ops import scan_xla as sx
+from roaringregex.compiler.program import compile_program
+from roaringregex.engine import ScanEngine
+from roaringregex.ops import scan_xla as sx
 
 PATTERNS = ["cat|dog", "(ab)*c+d?", "[a-f]{2,9}", "a{1,200}", "^ab", "ab$"]
 
@@ -31,8 +31,8 @@ def test_first_end_parity(pattern, backend):
 
 
 def test_finditer_spans_still_exact():
-    import roaringregex_tpu as rrx
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    import roaringregex as rrx
+    from roaringregex.oracle.engine import OracleEngine
 
     pat = rrx.Pattern("(ab)*c+d?", backend="pallas")
     orc = OracleEngine(pat.program.nfa)

@@ -11,8 +11,8 @@ import re
 import numpy as np
 import pytest
 
-import roaringregex_tpu as rrx
-from roaringregex_tpu.oracle.engine import OracleEngine
+import roaringregex as rrx
+from roaringregex.oracle.engine import OracleEngine
 
 ATOMS = ["a", "b", "c", "x", "0", ".", "[ab]", "[a-c]", "[^a]", "(ab)",
          "(a|b)", "\\.", "(a|bc)"]
@@ -148,7 +148,7 @@ def test_fuzz_long_mode_vs_oracle(seed):
     """Long-string mode (whatever scanner make_long_scanner picks —
     counting windows, overlapped windows, or summaries) vs the oracle on
     random patterns over strings long enough to cross window boundaries."""
-    from roaringregex_tpu.utils.config import get_config, set_config
+    from roaringregex.utils.config import get_config, set_config
 
     rng = np.random.default_rng(100 + seed)
     base = get_config()
@@ -180,10 +180,10 @@ def test_fuzz_long_mode_vs_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(2))
 def test_fuzz_bitband_vs_oracle(seed):
-    """Fuzz the sparse bitband decomposition: random {m,n} tails with
-    context (blocking alias/counting), forced onto the sparse tier via a
-    low dense_max; raw kernels only (no prefilter) vs oracle."""
-    from roaringregex_tpu.utils.config import get_config, set_config
+    """Fuzz the sparse tier: random {m,n} tails with context (blocking
+    alias/counting), forced onto the sparse tier via a low dense_max;
+    the raw XLA scan only (no prefilter) vs oracle."""
+    from roaringregex.utils.config import get_config, set_config
 
     rng = np.random.default_rng(4000 + seed)
     base = get_config()
@@ -222,10 +222,11 @@ def test_fuzz_bitband_vs_oracle(seed):
 
 @pytest.mark.parametrize("seed", range(2))
 def test_fuzz_multipattern_swar(seed):
-    """Fuzz slotted multi-pattern SWAR (random small patterns x random
-    slot counts) against per-pattern oracles."""
-    from roaringregex_tpu.api import MultiPattern
-    from roaringregex_tpu.compiler.nfa import build_nfa
+    """Fuzz the combined multi-pattern scan (random small patterns x
+    random pattern counts, word-kernel accept channels) against
+    per-pattern oracles."""
+    from roaringregex.api import MultiPattern
+    from roaringregex.compiler.nfa import build_nfa
 
     rng = np.random.default_rng(5000 + seed)
     for _ in range(4):

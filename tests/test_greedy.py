@@ -14,8 +14,8 @@ import re
 import numpy as np
 import pytest
 
-from roaringregex_tpu.api import Pattern
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.api import Pattern
+from roaringregex.oracle.engine import OracleEngine
 
 # patterns where Python re's greedy == POSIX leftmost-longest
 RE_SAFE = [
@@ -97,20 +97,18 @@ def test_lazy_vs_greedy_differ():
 
 
 def test_greedy_swar_kernels_engaged():
-    """SWAR-tier patterns route greedy spans + anchored rescans through
-    the SWAR kernels (not the matmul fallback), with oracle parity."""
+    """Small-automaton patterns on the ``pallas`` route: match stats on
+    the word kernel, greedy spans as one device program (engine.spans)
+    and anchored rescans on the packed engine, with oracle parity."""
     import numpy as np
 
-    from roaringregex_tpu.api import Pattern
-    from roaringregex_tpu.oracle.engine import OracleEngine
-    from roaringregex_tpu.ops.scan_swar import SwarScanner
+    from roaringregex.api import Pattern
+    from roaringregex.oracle.engine import OracleEngine
+    from roaringregex.ops.scan_word import WordScanner
 
     p = Pattern("a+b?", backend="pallas")
-    sc = p.engine.device_scanner
-    assert isinstance(sc, SwarScanner)
-    # the override exists on the class (not inherited from PallasScanner)
-    assert "greedy_spans_b" in type(sc).__dict__
-    assert "anchor_end_b" in type(sc).__dict__
+    assert isinstance(p.engine.device_scanner, WordScanner)
+    assert p.engine.device_spans
     orc = OracleEngine(p.program.nfa)
     rng = np.random.default_rng(9)
     texts = ["aaab", "abab", "ba", "", "a" * 50 + "b"]

@@ -11,9 +11,9 @@ import pytest
 
 import jax
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.oracle.engine import OracleEngine
-from roaringregex_tpu.parallel import (
+from roaringregex.compiler.program import compile_program
+from roaringregex.oracle.engine import OracleEngine
+from roaringregex.parallel import (
     DistScanner,
     ElasticScanner,
     InjectedFault,

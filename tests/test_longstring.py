@@ -7,9 +7,9 @@ straddle match boundaries) and both seeded and anchored conventions.
 import numpy as np
 import pytest
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.ops.longstring import LongScanner
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.compiler.program import compile_program
+from roaringregex.ops.longstring import LongScanner
+from roaringregex.oracle.engine import OracleEngine
 
 PATTERNS = ["cat|dog", "(ab)*c+d?", "a{2,9}", "^ab", "ab$", "(cat|dog)*",
             "[a-c]+x"]
@@ -21,8 +21,8 @@ _TESTS_PER_CLEAR = [0]
 
 @pytest.fixture(autouse=True)
 def _clear_caches_periodically():
-    """This module compiles the largest kernel population of the suite
-    (summary+replay, speculative, counting, dotstar, reversed-program
+    """This module compiles the largest program population of the suite
+    (summary+replay, windows, counting, dotstar, reversed-program
     variants); the XLA CPU runtime aborts when too many executables
     accumulate in one process (see conftest's per-module clear), so
     clear every few tests here to bound the population."""
@@ -82,7 +82,7 @@ def test_long_blocks_beat_sequential_equivalence():
 @pytest.mark.parametrize("pattern", ["cat|dog", "(ab)*c+d?", "^ab", "ab$",
                                      "(cat|dog)*", "[a-c]+x"])
 def test_fast_long_scanner_matches_oracle(pattern):
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    from roaringregex.ops.longstring import FastLongScanner
 
     prog = compile_program(pattern)
     oracle = OracleEngine(prog.nfa)
@@ -99,11 +99,11 @@ def test_fast_long_scanner_matches_oracle(pattern):
 
 
 def test_make_long_scanner_dispatch():
-    from roaringregex_tpu.ops.longstring import (
+    from roaringregex.ops.longstring import (
         FastLongScanner, LongScanner, make_long_scanner,
     )
 
-    from roaringregex_tpu.ops.longstring import CountLongScanner
+    from roaringregex.ops.longstring import CountLongScanner
 
     assert isinstance(make_long_scanner(compile_program("cat|dog")), FastLongScanner)
     # counting-plan patterns on one-record-per-row tiers: run-length windows
@@ -119,7 +119,7 @@ def test_make_long_scanner_dispatch():
 
 
 def test_pattern_long_api():
-    import roaringregex_tpu as rrx
+    import roaringregex as rrx
 
     p = rrx.Pattern("cat|dog")
     blob = b"x" * 5000 + b"cat" + b"y" * 5000 + b"dog"
@@ -129,10 +129,10 @@ def test_pattern_long_api():
 
 
 def test_fast_long_mode_selection():
-    """Bounded-horizon patterns take the overlapped window fast path;
+    """Bounded-horizon anchor-free patterns take the overlapped windows;
     cyclic patterns fall back to summary+replay; tiny blocks force
     summary mode when the horizon exceeds the overlap budget."""
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    from roaringregex.ops.longstring import FastLongScanner
 
     ov = FastLongScanner(compile_program("cat|dog"), block=16384)
     assert ov.overlap is not None and ov.prog.horizon == 3
@@ -144,24 +144,26 @@ def test_fast_long_mode_selection():
 
 
 def test_fast_long_q_packing():
-    """Pass 1 packs Q = G // 2^ceil(log2(P1)) blocks per column."""
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    """A cyclic pattern has no windows: its long scan is the portable
+    summary+replay scanner, exact on block-crossing inputs."""
+    from roaringregex.ops.longstring import FastLongScanner, LongScanner
 
     sc = FastLongScanner(compile_program("(cat|dog)*"), block=128)
-    assert sc.G == 16 and sc.P1 == 8 and sc.Q1 == 2
+    assert sc.overlap is None and isinstance(sc.summary, LongScanner)
     oracle = OracleEngine(sc.prog.nfa)
     t = b"catdog" * 100 + b"x" + b"cat" * 30
     assert set(np.nonzero(sc.ends_bitmap(t))[0].tolist()) == oracle.ends(t)
 
 
 def test_fast_long_rows_pb_gt_1():
-    """P1 > G: one block's basis spans several columns (rows_pb > 1)."""
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    """A cyclic pattern with more states than a packed row holds (S > G):
+    summary+replay over block-crossing matches, vs the oracle."""
+    from roaringregex.ops.longstring import FastLongScanner
 
     pattern = "(abcdefghijklmnopqrst)*x"
     prog = compile_program(pattern)
     sc = FastLongScanner(prog, block=128)
-    assert sc.rows_pb > 1, (sc.S, sc.G, sc.rows_pb)
+    assert prog.n_states > prog.G and sc.overlap is None
     oracle = OracleEngine(prog.nfa)
     texts = [b"abcdefghijklmnopqrst" * 20 + b"x",
              b"abcdefghijklmnopqrst" * 7,
@@ -173,13 +175,14 @@ def test_fast_long_rows_pb_gt_1():
 
 
 def test_fast_long_anchors_at_window_boundaries():
-    """^ must not fire at interior window starts and $ only at the true
-    EOS — the overlapped windows carry global stream offsets."""
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    """^ must not fire at interior block starts and $ only at the true
+    EOS — anchored patterns take the summary path, never windows."""
+    from roaringregex.ops.longstring import FastLongScanner
 
     for pattern in ("^ab", "ab$", "^ab.*cd$"):
         prog = compile_program(pattern)
         sc = FastLongScanner(prog, block=128)
+        assert sc.overlap is None
         oracle = OracleEngine(prog.nfa)
         for t in (b"ab" + b"xy" * 300, b"xy" * 300 + b"ab",
                   b"ab" + b"q" * 507 + b"cd"):
@@ -192,8 +195,8 @@ def test_finditer_long_matches_oracle():
     overlapped reverse pass, ends from slice-batched anchored rescans,
     host sweep for the non-overlap policy — vs the oracle, both policies,
     with matches planted across window boundaries."""
-    import roaringregex_tpu as rrx
-    from roaringregex_tpu.utils.config import get_config, set_config
+    import roaringregex as rrx
+    from roaringregex.utils.config import get_config, set_config
 
     base = get_config()
     rng = np.random.default_rng(17)
@@ -219,7 +222,7 @@ def test_finditer_long_cyclic():
     """Cyclic (unbounded-match-length) patterns: spans over one long
     string via the reversed-program start scan + doubling-window ends
     (round-5 task; the bounded-horizon wall is gone)."""
-    import roaringregex_tpu as rrx
+    import roaringregex as rrx
 
     rng = np.random.default_rng(6)
     base = bytes(rng.choice(list(b"abcdert og"), size=1100).astype(np.uint8))
@@ -260,9 +263,9 @@ def _blob(rng, n, alphabet=b"aabx"):
 def test_count_long_oracle_parity(pattern):
     """Stats and bitmaps across window boundaries must match the oracle
     (tiny 128-byte windows force many boundary crossings)."""
-    from roaringregex_tpu.ops.longstring import CountLongScanner
-    from roaringregex_tpu.ops.scan_pallas import counting_plan
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.ops.longstring import CountLongScanner
+    from roaringregex.ops.scan_count import counting_plan
+    from roaringregex.oracle.engine import OracleEngine
 
     prog = compile_program(pattern)
     plan = counting_plan(prog)
@@ -292,9 +295,9 @@ def test_count_long_oracle_parity(pattern):
 def test_count_long_finditer():
     """finditer_long routes candidate starts through CountLongScanner's
     reverse windows for bounded-horizon counting patterns."""
-    import roaringregex_tpu as rrx
-    from roaringregex_tpu.ops.longstring import CountLongScanner
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    import roaringregex as rrx
+    from roaringregex.ops.longstring import CountLongScanner
+    from roaringregex.oracle.engine import OracleEngine
 
     pat = rrx.Pattern("a{1,300}")
     assert isinstance(pat.long, CountLongScanner)
@@ -312,9 +315,9 @@ def test_count_long_unbounded_cyclic_stats():
     """X{m,} has a cyclic follow graph (no FastLongScanner overlapped
     mode, no finite horizon), but the counting windows stay exact and the
     closed-form span enumeration still works."""
-    import roaringregex_tpu as rrx
-    from roaringregex_tpu.ops.longstring import CountLongScanner
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    import roaringregex as rrx
+    from roaringregex.ops.longstring import CountLongScanner
+    from roaringregex.oracle.engine import OracleEngine
 
     pat = rrx.Pattern("(ab){130,}")
     assert isinstance(pat.long, CountLongScanner)
@@ -336,9 +339,9 @@ def test_count_long_unbounded_cyclic_stats():
 def test_count_long_closed_form_spans(pattern):
     """finditer_long for counting patterns = closed-form run-length walk
     (lazy match = exactly m copies; greedy = min(copies, n))."""
-    import roaringregex_tpu as rrx
-    from roaringregex_tpu.ops.longstring import CountLongScanner
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    import roaringregex as rrx
+    from roaringregex.ops.longstring import CountLongScanner
+    from roaringregex.oracle.engine import OracleEngine
 
     pat = rrx.Pattern(pattern)
     assert isinstance(pat.long, CountLongScanner)
@@ -365,7 +368,7 @@ def test_fast_long_wide_tiles(pattern, blk):
     """Overlapped windows on wide tiles (s_tile > 32): seeded stats and
     bitmaps at kernel rate; unseeded fullmatch delegates to the portable
     summary scanner."""
-    from roaringregex_tpu.ops.longstring import FastLongScanner
+    from roaringregex.ops.longstring import FastLongScanner
 
     prog = compile_program(pattern)
     assert prog.s_tile > 32
@@ -391,7 +394,7 @@ def test_fast_long_wide_tiles(pattern, blk):
 def test_finditer_long_empty_input():
     """Empty input must not crash the candidate-slice path (regression:
     arr[-1] gather on a zero-length array)."""
-    import roaringregex_tpu as rrx
+    import roaringregex as rrx
 
     assert rrx.Pattern("a{0,5}").finditer_long(b"", longest=True) == [(0, 0)]
     assert rrx.Pattern("x?").finditer_long(b"") == [(0, 0)]
@@ -408,11 +411,11 @@ def test_dotstar_rewrite_oracle_parity(pattern):
     """`.*X.*`-shaped patterns must route to the DotStarLongScanner and
     match the oracle exactly — including dead (>= 0x80) bytes that break
     a trailing `.*` and force the segmented epilogue."""
-    from roaringregex_tpu.ops.longstring import (
+    from roaringregex.ops.longstring import (
         DotStarLongScanner,
         make_long_scanner,
     )
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     prog = compile_program(pattern)
     sc = make_long_scanner(prog, block=256)
@@ -439,7 +442,7 @@ def test_dotstar_rewrite_oracle_parity(pattern):
 def test_dotstar_rewrite_gates():
     """Patterns the rewrite must NOT claim: inner .*, nullable cores,
     bounded-horizon patterns (already fast), anchored cores."""
-    from roaringregex_tpu.ops.longstring import (
+    from roaringregex.ops.longstring import (
         DotStarLongScanner,
         make_long_scanner,
     )
@@ -450,62 +453,36 @@ def test_dotstar_rewrite_gates():
 
 
 def test_speculative_cyclic_validation():
-    """Speculative windows (FastLongScanner._spec_impl) must validate
-    exactly: convergent inputs return ok=True with the true count;
-    long-memory inputs (a b-run longer than the warmup separating an
-    anchor char from its closer) return ok=False, and the public API
-    falls back to the summary mode with exact results either way."""
-    import jax.numpy as jnp
-
-    from roaringregex_tpu.ops.longstring import FastLongScanner
-    from roaringregex_tpu.oracle.engine import OracleEngine
-    from roaringregex_tpu.utils.config import get_config, set_config
+    """Cyclic patterns have no window horizon: FastLongScanner takes the
+    summary+replay path, which must be exact for convergent inputs and for
+    long-memory ones (a b-run longer than any warmup separating an anchor
+    char from its closer)."""
+    from roaringregex.ops.longstring import FastLongScanner
+    from roaringregex.oracle.engine import OracleEngine
 
     rng = np.random.default_rng(37)
-    base = get_config()
-    try:
-        set_config(base.with_(spec_warmup=64))
-        for pat in ("(ab)*c", "(cat|dog)*x", "a(bb)*c"):
-            prog = compile_program(pat)
-            sc = FastLongScanner(prog, block=256)
-            assert sc.overlap is None, pat
-            orc = OracleEngine.compile(pat)
-            texts = [
-                b"ababc" * 100,
-                bytes(rng.choice(list(b"abcdogtx"), 1500).astype(np.uint8)),
-                b"a" + b"b" * 602 + b"c",  # long memory: must fall back
-                b"x" * 700 + b"catdogx" + b"y" * 300,
-            ]
-            for t in texts:
-                assert sc.count_ends(t) == len(orc.ends(t)), (pat, len(t))
-                assert sc.search(t) == bool(orc.ends(t)), (pat, len(t))
-        # the validator itself: reject the long-memory case
-        prog = compile_program("a(bb)*c")
+    for pat in ("(ab)*c", "(cat|dog)*x", "a(bb)*c"):
+        prog = compile_program(pat)
         sc = FastLongScanner(prog, block=256)
-        t = np.frombuffer(b"a" + b"b" * 601 + b"c", np.uint8)
-        _, ok = sc._spec_impl(jnp.asarray(t), n=len(t), mode="count", W=64)
-        assert not bool(ok)
-        t2 = np.frombuffer(b"z" * 500 + b"abbc" + b"y" * 200, np.uint8)
-        val, ok2 = sc._spec_impl(jnp.asarray(t2), n=len(t2), mode="count",
-                                 W=64)
-        assert bool(ok2) and int(val) == 1
-        # kill switch: spec_warmup=0 routes straight to summaries
-        set_config(base.with_(spec_warmup=0))
-        sc2 = FastLongScanner(compile_program("(ab)*c"), block=256)
-        t3 = b"zzababc" * 50
-        assert sc2.count_ends(t3) == len(
-            OracleEngine.compile("(ab)*c").ends(t3)
-        )
-    finally:
-        set_config(base)
+        assert sc.overlap is None, pat
+        orc = OracleEngine.compile(pat)
+        texts = [
+            b"ababc" * 100,
+            bytes(rng.choice(list(b"abcdogtx"), 1500).astype(np.uint8)),
+            b"a" + b"b" * 602 + b"c",  # long memory
+            b"x" * 700 + b"catdogx" + b"y" * 300,
+        ]
+        for t in texts:
+            assert sc.count_ends(t) == len(orc.ends(t)), (pat, len(t))
+            assert sc.search(t) == bool(orc.ends(t)), (pat, len(t))
 
 
 def test_count_long_run_duck_types_fast_scanner():
     """CountLongScanner._run must honor the (seeded, mode) contract of
     FastLongScanner._run: mode 'full' is whole-string acceptance, not the
     seeded search-anywhere result, and unsupported combos raise."""
-    from roaringregex_tpu.ops.longstring import CountLongScanner
-    from roaringregex_tpu.ops.scan_pallas import counting_plan
+    from roaringregex.ops.longstring import CountLongScanner
+    from roaringregex.ops.scan_count import counting_plan
 
     prog = compile_program("a{2,3}")
     sc = CountLongScanner(prog, counting_plan(prog), block=128)

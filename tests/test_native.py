@@ -8,9 +8,9 @@ pattern fuzzing. The packer must reproduce the Python packing layout.
 import numpy as np
 import pytest
 
-from roaringregex_tpu.compiler import native
-from roaringregex_tpu.compiler.nfa import build_nfa_py
-from roaringregex_tpu.compiler.parser import RegexSyntaxError
+from roaringregex.compiler import native
+from roaringregex.compiler.nfa import build_nfa_py
+from roaringregex.compiler.parser import RegexSyntaxError
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native library unavailable"
@@ -75,7 +75,7 @@ def test_native_rejects_like_python(bad):
 
 
 def test_native_too_large():
-    from roaringregex_tpu.compiler.nfa import PatternTooLargeError
+    from roaringregex.compiler.nfa import PatternTooLargeError
 
     with pytest.raises(PatternTooLargeError):
         native.build_nfa_native("a{1,20000}")
@@ -130,8 +130,8 @@ def _host_texts():
 def test_host_engine_oracle_parity(pattern):
     """HostEngine (native/rrx_host.cc RrxScanner) must agree with the
     oracle on fullmatch, the distinct-ends count, and the first end."""
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     he = HostEngine(pattern)
     orc = OracleEngine.compile(pattern)
@@ -145,8 +145,8 @@ def test_host_engine_oracle_parity(pattern):
 
 
 def test_host_engine_fuzz_parity():
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     rng = np.random.default_rng(11)
     atoms = list("abcx.") + ["[a-c]", "[^b]", "(ab)", "(a|b)", "^", "$"]
@@ -172,7 +172,7 @@ def test_host_engine_fuzz_parity():
 
 
 def test_host_engine_non_ascii_dead():
-    from roaringregex_tpu.compiler.native import HostEngine
+    from roaringregex.compiler.native import HostEngine
 
     he = HostEngine("a.c")
     assert not he.fullmatch(b"a\xffc")  # bytes >= 0x80 are dead symbols
@@ -183,8 +183,8 @@ def test_host_engine_non_ascii_dead():
 def test_host_engine_spans_oracle_parity():
     """rrx_spans (backward viability + anchored rescan) must reproduce the
     oracle finditer policy exactly, lazy and greedy."""
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     pats = ["cat|dog", "ab*", "a{2,5}", "(ab)+", "^ab", "ab$", "^a*$",
             "a.b", "x?", "(a|b)*c", "^", "$", "[^a]b", "(ab){2,6}", ".*"]
@@ -199,8 +199,8 @@ def test_host_engine_spans_oracle_parity():
 
 
 def test_host_engine_spans_fuzz():
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     rng = np.random.default_rng(23)
     atoms = list("abcx.") + ["[a-c]", "[^b]", "(ab)", "(a|b)", "^", "$"]
@@ -228,7 +228,7 @@ def test_host_engine_spans_fuzz():
 
 def test_host_engine_spans_cap_regrow():
     """Exact total count drives the one-shot capacity regrow (> 64 spans)."""
-    from roaringregex_tpu.compiler.native import HostEngine
+    from roaringregex.compiler.native import HostEngine
 
     he = HostEngine("a")
     text = b"a" * 200
@@ -240,8 +240,8 @@ def test_host_grep_lines_oracle_parity():
     """rrx_grep_lines: whole-buffer grep in one native call must agree
     with per-line oracle search, including $-anchored accepts, dead
     bytes, empty lines, and a missing trailing newline."""
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     rng = np.random.default_rng(13)
     for pat in ["cat|dog", "^ab", "ab$", "a{2,5}", "x?", "(a|b)*c", "a{100}"]:
@@ -265,14 +265,14 @@ def test_host_grep_lines_oracle_parity():
 def test_rebuild_and_load_recovers():
     """_rebuild_and_load: the stale-.so escape hatch must produce a fully
     bound, working library (exercises make -B + temp-copy dlopen)."""
-    from roaringregex_tpu.compiler import native as nat
+    from roaringregex.compiler import native as nat
 
     if not nat.available():
         pytest.skip("native library unavailable")
     lib = nat._rebuild_and_load()
     assert lib is not None
     # new-API symbols are bound and callable through a fresh handle
-    from roaringregex_tpu.compiler.native import HostEngine
+    from roaringregex.compiler.native import HostEngine
 
     he = HostEngine("cat")
     assert he.finditer(b"xcat") == [(1, 4)]
@@ -281,8 +281,8 @@ def test_rebuild_and_load_recovers():
 def test_host_engine_128bit_tier_parity():
     """65..128-state patterns run the double-word lazy DFA (the
     reference's 128-bit SIMD tier analog) — full oracle parity."""
-    from roaringregex_tpu.compiler.native import HostEngine
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.compiler.native import HostEngine
+    from roaringregex.oracle.engine import OracleEngine
 
     rng = np.random.default_rng(71)
     for p in ["a{100}", "a{65}", "[ab]{70,90}", "(abcd){17,25}",

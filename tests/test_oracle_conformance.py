@@ -6,8 +6,8 @@ import re
 
 import pytest
 
-from roaringregex_tpu.compiler.parser import RegexSyntaxError
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.compiler.parser import RegexSyntaxError
+from roaringregex.oracle.engine import OracleEngine
 
 # (text, pattern, accept?) -- transcribed from SURVEY.md SS4.3, every row of
 # which was verified against the reference binary.

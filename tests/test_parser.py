@@ -1,8 +1,8 @@
 """Parser + Glushkov builder unit tests."""
 import pytest
 
-from roaringregex_tpu.compiler.nfa import build_nfa, count_positions
-from roaringregex_tpu.compiler.parser import (
+from roaringregex.compiler.nfa import build_nfa, count_positions
+from roaringregex.compiler.parser import (
     BOS,
     EOS,
     Alt,

@@ -9,10 +9,10 @@ import pytest
 
 import jax.numpy as jnp
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.ops import scan_packed as sp
-from roaringregex_tpu.ops import scan_xla as sx
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.compiler.program import compile_program
+from roaringregex.ops import scan_packed as sp
+from roaringregex.ops import scan_xla as sx
+from roaringregex.oracle.engine import OracleEngine
 
 # pattern -> expected s_tile
 TIER_PATTERNS = [
@@ -116,7 +116,7 @@ def test_packed_matches_unpacked_and_oracle(pattern, s_tile):
 
 def test_api_uses_packed_backend_consistently():
     """End-to-end Pattern API on a packed tier agrees with the oracle."""
-    import roaringregex_tpu as rrx
+    import roaringregex as rrx
 
     pat = rrx.compile("(cat|dog)+")
     oracle = OracleEngine(pat.program.nfa)

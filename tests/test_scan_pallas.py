@@ -1,18 +1,18 @@
-"""Pallas kernel parity vs the packed XLA engine (interpret mode on CPU).
+"""The ``pallas`` route vs the unpacked XLA engine (interpret mode on CPU).
 
-SURVEY.md §4.2: TPU kernels are tested against the oracle on CPU via
-interpret-mode Pallas so CI needs no TPU. The kernels must agree exactly
-with ops/scan_packed.py on every primitive and tile size.
+On the ``pallas`` route each program takes the word kernel, the run-length
+scanner or the packed engine (``platform.route``); whatever it takes must
+agree exactly with the unpacked reference engine (ops/scan_xla.py) on
+every primitive and tile size.
 """
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.ops import scan_packed as sp
-from roaringregex_tpu.ops import scan_pallas as spl
-from roaringregex_tpu.ops import scan_xla as sx
+from roaringregex.compiler.program import compile_program
+from roaringregex.engine import ScanEngine
+from roaringregex.ops import scan_xla as sx
 
 PATTERNS = [
     "cat|dog",            # tile 8, G=16
@@ -29,9 +29,8 @@ PATTERNS = [
 
 def _setup(pattern, seed=0, n=40, maxlen=30, L=32):
     prog = compile_program(pattern)
-    tab_u = sx.device_tables(prog)
-    tab_p = sp.packed_tables(prog)
-    scanner = spl.PallasScanner(prog, tab_p)
+    eng = ScanEngine(prog, backend="pallas")
+    ref = ScanEngine(prog, backend="xla")
     rng = np.random.default_rng(seed)
     texts = [b"", b"cat", b"catdog", b"ababccd", b"abc", b"aaaaa"]
     for _ in range(n):
@@ -46,72 +45,58 @@ def _setup(pattern, seed=0, n=40, maxlen=30, L=32):
     for i, t in enumerate(texts):
         data[i, : len(t)] = np.frombuffer(t, np.uint8)
         lengths[i] = len(t)
-    cls = sx.encode_stream(
-        tab_u,
-        jnp.asarray(data),
-        jnp.asarray(lengths),
-        prog.bos_class,
-        prog.eos_class,
-        prog.dead_class,
-    )
-    words = sp.pack_mask_stream(tab_p, cls, s_tile=prog.s_tile, G=prog.G)
-    len_g = jnp.asarray(lengths).reshape(-1, prog.G)
-    return prog, tab_p, scanner, words, len_g
+    return prog, eng, ref, data, lengths
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_pallas_match_stats_parity(pattern):
-    prog, tab_p, scanner, words, len_g = _setup(pattern)
+    prog, eng, ref, data, lengths = _setup(pattern)
     for seeded in (True, False):
-        cp, fp, ap = sp.match_stats(
-            tab_p, words, len_g, seeded=seeded, nullable=prog.nullable,
-            lanes=prog.lanes,
-        )
-        ck, fk, ak = scanner.match_stats(words, len_g, seeded=seeded)
-        np.testing.assert_array_equal(np.asarray(cp), np.asarray(ck), err_msg=pattern)
-        np.testing.assert_array_equal(np.asarray(fp), np.asarray(fk), err_msg=pattern)
-        np.testing.assert_array_equal(np.asarray(ap), np.asarray(ak), err_msg=pattern)
+        for name, x, y in zip(
+            ("cnt", "first", "any"),
+            eng.match_stats(data, lengths, seeded=seeded),
+            ref.match_stats(data, lengths, seeded=seeded),
+        ):
+            np.testing.assert_array_equal(
+                np.asarray(x), np.asarray(y), err_msg=f"{pattern} {name}"
+            )
+    np.testing.assert_array_equal(
+        eng.fullmatch_flags(data, lengths), ref.fullmatch_flags(data, lengths)
+    )
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_pallas_forward_flags_parity(pattern):
-    prog, tab_p, scanner, words, len_g = _setup(pattern, seed=1)
+    prog, eng, ref, data, lengths = _setup(pattern, seed=1)
     for seeded in (True, False):
-        flp = np.asarray(
-            sp.forward_flags(tab_p, words, seeded=seeded, lanes=prog.lanes)
-        )
-        flk = np.asarray(scanner.forward_flags(words, seeded=seeded))
+        flp = np.asarray(eng.forward_flags(data, lengths, seeded=seeded))
+        flk = np.asarray(ref.forward_flags(data, lengths, seeded=seeded))
         np.testing.assert_array_equal(flp, flk, err_msg=f"{pattern} {seeded}")
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_pallas_reverse_hits_parity(pattern):
-    prog, tab_p, scanner, words, len_g = _setup(pattern, seed=2)
-    hp = np.asarray(sp.reverse_hits(tab_p, words, lanes=prog.lanes))
-    hk = np.asarray(scanner.reverse_hits(words))
+    prog, eng, ref, data, lengths = _setup(pattern, seed=2)
+    hp = np.asarray(eng.reverse_hits(data, lengths))
+    hk = np.asarray(ref.reverse_hits(data, lengths))
     np.testing.assert_array_equal(hp, hk, err_msg=pattern)
 
 
 def test_pallas_multi_chunk_grid():
-    """T and B big enough to force several grid blocks in both dimensions."""
+    """B and L big enough for several word-kernel record blocks and a
+    long byte loop, vs the packed and unpacked engines."""
     prog = compile_program("cat|dog")
-    tab_p = sp.packed_tables(prog)
-    scanner = spl.PallasScanner(prog, tab_p)
-    tab_u = sx.device_tables(prog)
+    eng = ScanEngine(prog, backend="pallas")
+    assert eng.route.kernel == "word"
     rng = np.random.default_rng(3)
     G = prog.G
-    B, L = 64 * G, 600  # B_rows=64 (<128 pad), T=602 -> 3 chunks of 256
+    B, L = 64 * G, 600  # 1024 records -> 8 blocks of 128, 601 steps
     data = rng.integers(97, 123, size=(B, L), dtype=np.uint8)
     lengths = rng.integers(0, L + 1, size=B).astype(np.int32)
-    cls = sx.encode_stream(
-        tab_u, jnp.asarray(data), jnp.asarray(lengths),
-        prog.bos_class, prog.eos_class, prog.dead_class,
-    )
-    words = sp.pack_mask_stream(tab_p, cls, s_tile=prog.s_tile, G=prog.G)
-    len_g = jnp.asarray(lengths).reshape(-1, G)
-    cp, fp, _ = sp.match_stats(
-        tab_p, words, len_g, seeded=True, nullable=prog.nullable, lanes=prog.lanes
-    )
-    ck, fk, _ = scanner.match_stats(words, len_g, seeded=True)
-    np.testing.assert_array_equal(np.asarray(cp), np.asarray(ck))
-    np.testing.assert_array_equal(np.asarray(fp), np.asarray(fk))
+    ck, fk, _ = eng.match_stats(data, lengths, seeded=True)
+    for backend in ("packed", "xla"):
+        cp, fp, _ = ScanEngine(prog, backend=backend).match_stats(
+            data, lengths, seeded=True
+        )
+        np.testing.assert_array_equal(np.asarray(cp), np.asarray(ck))
+        np.testing.assert_array_equal(np.asarray(fp), np.asarray(fk))

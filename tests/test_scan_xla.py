@@ -8,9 +8,9 @@ import random
 import numpy as np
 import pytest
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.oracle.engine import OracleEngine
-from roaringregex_tpu.ops import scan_xla as sx
+from roaringregex.compiler.program import compile_program
+from roaringregex.oracle.engine import OracleEngine
+from roaringregex.ops import scan_xla as sx
 
 
 def _batchify(texts, L=None):

@@ -9,11 +9,11 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from roaringregex_tpu.api import Pattern  # noqa: E402
-from roaringregex_tpu.compiler.program import compile_program  # noqa: E402
-from roaringregex_tpu.engine import ScanEngine  # noqa: E402
-from roaringregex_tpu.oracle.engine import OracleEngine  # noqa: E402
-from roaringregex_tpu.utils.config import get_config, set_config  # noqa: E402
+from roaringregex.api import Pattern  # noqa: E402
+from roaringregex.compiler.program import compile_program  # noqa: E402
+from roaringregex.engine import ScanEngine  # noqa: E402
+from roaringregex.oracle.engine import OracleEngine  # noqa: E402
+from roaringregex.utils.config import get_config, set_config  # noqa: E402
 
 
 def test_alias_routing_gates():
@@ -51,7 +51,7 @@ def test_alias_routing_gates():
 def test_alias_long_string_parity():
     """AliasLongScanner: seeded long-string scans of an X{m,n} blowup run
     on the X{m,} alias; fullmatch keeps the original."""
-    from roaringregex_tpu.ops.longstring import (
+    from roaringregex.ops.longstring import (
         AliasLongScanner,
         make_long_scanner,
     )
@@ -74,7 +74,7 @@ def test_alias_dist_batched_paths():
     >1024-state blowup route through the alias DistScanner — including
     sharded span extraction, which the sparse tier alone cannot do."""
     import jax
-    from roaringregex_tpu.parallel import DistScanner, make_mesh, shard_batch
+    from roaringregex.parallel import DistScanner, make_mesh, shard_batch
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -105,7 +105,7 @@ def test_alias_dist_batched_paths():
 def test_alias_dist_long_stats(request):
     """Sharded long-string stats route through the alias DistScanner."""
     import jax
-    from roaringregex_tpu.parallel import DistScanner, make_mesh
+    from roaringregex.parallel import DistScanner, make_mesh
 
     if len(jax.devices()) < 8:
         pytest.skip("needs the 8-device CPU mesh")
@@ -124,8 +124,8 @@ def test_sparse_prefilter_parity():
     container kernels run only on compacted candidate records; results
     must be exact for hit-light batches (compacted branch) AND hit-heavy
     batches (candidate count exceeds the bucket -> full-scan branch)."""
-    from roaringregex_tpu.engine import relaxed_prefilter_program
-    from roaringregex_tpu.utils.config import get_config, set_config
+    from roaringregex.engine import relaxed_prefilter_program
+    from roaringregex.utils.config import get_config, set_config
 
     pat = "x(ab|c){400,520}y"
     hit = b"x" + b"ab" * 200 + b"c" * 210 + b"y"
@@ -223,7 +223,7 @@ def test_prefilter_wired_into_all_primitives():
     forward_flags, fullmatch_flags, first_end_from and the span
     enumeration — not just match_stats. Exactness on a hit-light large
     batch (compacted branch) vs the oracle, plus spans via finditer."""
-    from roaringregex_tpu.api import Pattern
+    from roaringregex.api import Pattern
 
     pat = "x(ab|c){400,520}y"
     hit = b"x" + b"ab" * 200 + b"c" * 210 + b"y"

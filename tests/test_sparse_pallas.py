@@ -1,14 +1,13 @@
-"""Block-sparse (roaring-container) pallas tier: interpret-mode parity.
+"""Block-sparse (>1024-state) tier on the ``pallas`` route.
 
-S > 1024 patterns route to SparseScanner: partial 128x128 "bitmap"
-containers as explicit MXU matmuls, all-ones "run" containers through the
-rank-1 U map. Must agree with the oracle and the unpacked XLA engine.
+S > 1024 patterns scan through the unpacked XLA engine, or the run-length
+scanner where a counting plan applies. Must agree with the oracle.
 """
 import numpy as np
 import pytest
 
-from roaringregex_tpu.api import Pattern
-from roaringregex_tpu.oracle.engine import OracleEngine
+from roaringregex.api import Pattern
+from roaringregex.oracle.engine import OracleEngine
 
 PATTERNS = ["a{3,1200}", "(ab){10,600}", "x[a-c]{1030,1060}"]
 
@@ -17,7 +16,9 @@ PATTERNS = ["a{3,1200}", "(ab){10,600}", "x[a-c]{1030,1060}"]
 def test_sparse_pallas_parity(pattern):
     p = Pattern(pattern, backend="pallas")
     assert p.tier == "sparse"
-    assert p.engine.backend == "pallas", "partial-block cap too low?"
+    assert p.engine.backend == "xla"
+    if p.engine.route.kernel == "count":
+        assert pattern in ("a{3,1200}", "(ab){10,600}")
     orc = OracleEngine(p.program.nfa)
     rng = np.random.default_rng(1)
     texts = ["", "a" * 3, "ab" * 12, "a" * 1200, "ab" * 600, "x" + "abc" * 350]
@@ -35,32 +36,18 @@ def test_sparse_pallas_parity(pattern):
     assert p.finditer_batch([t])[0] == orc.findall(t), pattern
 
 
-def test_sparse_cap_falls_back_to_xla(caplog):
-    """A structure denser than the VMEM cap falls back to XLA, correctly —
-    and loudly (engine logs a warning naming the caps)."""
-    import logging
+def test_sparse_cap_falls_back_to_xla():
+    """A sparse structure with no counting plan routes to the XLA engine
+    on every platform, and stays exact."""
+    from roaringregex import platform
 
-    from roaringregex_tpu.utils.config import get_config, set_config
-
-    base = get_config()
-    try:
-        # bitband off: the band+rank-1 bit kernels would otherwise absorb
-        # this structure without touching the container caps
-        set_config(base.with_(sparse_partial_max=8, bitband=False))
-        with caplog.at_level(
-            logging.WARNING, logger="roaringregex_tpu.engine"
-        ):
-            # variable-length branches: no counting plan (equal-length
-            # bodies like (a|b|c){...} now route to the run-length tier)
-            p = Pattern("(ab|c){520,550}", backend="pallas")
-    finally:
-        set_config(base)
+    # variable-length branches: no counting plan (equal-length bodies
+    # like (a|b|c){...} route to the run-length scanner)
+    p = Pattern("(ab|c){520,550}", backend="pallas")
     assert p.tier == "sparse"
-    assert p.engine.backend == "xla"
-    assert any(
-        "sparse" in r.getMessage() and "falling back" in r.getMessage()
-        for r in caplog.records
-    ), [r.getMessage() for r in caplog.records]
+    assert p.engine.backend == "xla" and p.engine.device_scanner is None
+    for plat in ("gpu", "cpu"):
+        assert platform.route(p.program, plat=plat).backend == "xla"
     orc = OracleEngine(p.program.nfa)
     ts = ["a" * 1039, "abc" * 350, "ab" * 520]
     fm = p.fullmatch_batch(ts)

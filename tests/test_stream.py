@@ -1,4 +1,4 @@
-"""Out-of-core streaming (roaringregex_tpu/stream.py): the chunked
+"""Out-of-core streaming (roaringregex/stream.py): the chunked
 host->device pipeline must be exactly equivalent to one big batch, the
 line batcher must reassemble records across read-chunk boundaries, and
 the CLI --stream path must agree with grep semantics."""
@@ -9,10 +9,10 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from roaringregex_tpu.compiler.program import compile_program  # noqa: E402
-from roaringregex_tpu.engine import ScanEngine  # noqa: E402
-from roaringregex_tpu.oracle.engine import OracleEngine  # noqa: E402
-from roaringregex_tpu.stream import (  # noqa: E402
+from roaringregex.compiler.program import compile_program  # noqa: E402
+from roaringregex.engine import ScanEngine  # noqa: E402
+from roaringregex.oracle.engine import OracleEngine  # noqa: E402
+from roaringregex.stream import (  # noqa: E402
     StreamScanner,
     iter_line_batches,
     pack_records,
@@ -115,7 +115,7 @@ def test_stream_file_stats_matches_grep():
 
 
 def test_cli_stream(tmp_path, capsys):
-    from roaringregex_tpu.cli import main
+    from roaringregex.cli import main
 
     p = tmp_path / "corpus.txt"
     p.write_bytes(b"a cat here\nnothing\ndogs galore\n\ncat\n")
@@ -134,8 +134,8 @@ def test_multipattern_stream():
     """StreamScanner over a MultiPattern: one combined-automaton pass per
     chunk, per-record hits = union over pattern channels (incl. a
     nullable channel, which hits every record)."""
-    from roaringregex_tpu.api import MultiPattern
-    from roaringregex_tpu.compiler.nfa import build_nfa
+    from roaringregex.api import MultiPattern
+    from roaringregex.compiler.nfa import build_nfa
 
     rng = np.random.default_rng(13)
     chunks = _chunks(rng, 3, 32, 64, plant=b"cat")
@@ -159,7 +159,7 @@ def test_multipattern_stream():
 
 
 def test_cli_stream_multipattern(tmp_path, capsys):
-    from roaringregex_tpu.cli import main
+    from roaringregex.cli import main
 
     p = tmp_path / "c.txt"
     p.write_bytes(b"a cat\nnothing here\n42 wide\n")
@@ -172,14 +172,14 @@ def test_stats_stream_nullable_padding_exact():
     """Phantom pad rows must not count as matches/records for nullable
     patterns (single- and multi-pattern), and nullable channels must get
     the exact empty-match counts (len + 1 per real record)."""
-    from roaringregex_tpu.api import MultiPattern
-    from roaringregex_tpu.stream import stream_file_stats
+    from roaringregex.api import MultiPattern
+    from roaringregex.stream import stream_file_stats
 
     st = stream_file_stats("a*", io.BytesIO(b"aa\nb\n\n"), rows=64,
                            chunk_bytes=64)
     # ends per record: 'aa' -> 3, 'b' -> 1 (empty match positions 0,1 and
     # ... a* on 'b': ends {0,1}) wait oracle: len+1 = 2; '' -> 1
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.oracle.engine import OracleEngine
     orc = OracleEngine.compile("a*")
     want = sum(len(orc.ends(t)) for t in [b"aa", b"b", b""])
     assert st.matches == want
@@ -203,8 +203,8 @@ def test_stream_single_nullable_multipattern():
     """MultiPattern(['a*']) (P == 1 but the engine runs nullable=False):
     stats and hits must apply the channel correction, not the
     native-nullable-engine one."""
-    from roaringregex_tpu.api import MultiPattern
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    from roaringregex.api import MultiPattern
+    from roaringregex.oracle.engine import OracleEngine
 
     orc = OracleEngine.compile("a*")
     data, lens = pack_records([b"aa", b"b", b""], 3, 16)
@@ -220,7 +220,7 @@ def test_stream_raw_engine_gates():
     """A raw multi-channel engine with a nullable pattern is rejected
     (per-channel nullability unrecoverable); non-nullable multi engines
     and plain single-pattern engines work."""
-    from roaringregex_tpu.api import MultiPattern
+    from roaringregex.api import MultiPattern
 
     with pytest.raises(ValueError):
         StreamScanner(MultiPattern(["a*", "b"]).engine)
@@ -243,7 +243,7 @@ def test_spans_stream_parity():
     rng = np.random.default_rng(11)
     chunks = _chunks(rng, 3, 32, 96)
     sc = StreamScanner("cat|dog", depth=2, backend="pallas")
-    from roaringregex_tpu.api import Pattern
+    from roaringregex.api import Pattern
 
     p = Pattern("cat|dog")
     for s_b, e_b, c_b, over, data, lens in sc.spans_stream(
@@ -290,7 +290,7 @@ def test_spans_stream_parity():
 
 
 def test_cli_stream_spans(tmp_path, capsys):
-    from roaringregex_tpu.cli import main
+    from roaringregex.cli import main
 
     f = tmp_path / "t.txt"
     f.write_bytes(b"the cat sat\nno match\ndog dog\n")
@@ -302,9 +302,9 @@ def test_cli_stream_spans(tmp_path, capsys):
 
 def test_spans_stream_sparse_bitband():
     """Out-of-core span extraction on a >256-state (forced-sparse)
-    pattern: spans_stream -> engine.lazy_spans (prefilter compaction) ->
-    bitband anchored span rounds, all inside the chunk jit."""
-    from roaringregex_tpu.utils.config import get_config, set_config
+    pattern: spans_stream -> engine.spans (prefilter compaction) -> XLA
+    anchored span rounds, all inside the chunk jit."""
+    from roaringregex.utils.config import get_config, set_config
 
     base = get_config()
     try:
@@ -312,9 +312,7 @@ def test_spans_stream_sparse_bitband():
         pat = "x(ab|c){100,120}y"
         hit = b"x" + b"ab" * 20 + b"c" * 85 + b"y"  # 105 copies
         eng = ScanEngine(compile_program(pat), backend="pallas")
-        from roaringregex_tpu.ops.scan_bitband import BitbandScanner
-
-        assert isinstance(eng.device_scanner, BitbandScanner)
+        assert eng.backend == "xla" and eng.device_spans
         sc = StreamScanner(eng, depth=2)
         rng = np.random.default_rng(13)
         chunks = []

@@ -1,21 +1,22 @@
-"""SWAR bit-packed scanner parity (interpret mode on CPU).
+"""Small-automaton (<= 8 states) scans on the ``pallas`` route vs the oracle.
 
-The SWAR path (ops/scan_swar.py) repacks s_tile == 8 programs as 4 records
-per uint32 lane with sentinel-byte length encoding and reduces an accept
-bit-log in XLA; it must agree exactly with the matmul PallasScanner
-(itself parity-tested against the packed engine and the oracle) on every
-match_stats_b output, including nullable/anchor/empty-record edges.
+Match statistics run through the Pallas-Triton word kernel (interpret
+mode on CPU), everything else through the packed engine. Every output
+must agree exactly with the oracle, including the nullable/anchor/
+empty-record edges.
 """
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
+from roaringregex import platform
+from roaringregex.api import Pattern
+from roaringregex.compiler.program import compile_program
+from roaringregex.engine import ScanEngine
+from roaringregex.ops.scan_word import WordScanner, word_spec
+from roaringregex.oracle.engine import OracleEngine
+from roaringregex.utils.config import get_config, set_config
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.engine import ScanEngine
-from roaringregex_tpu.ops import scan_packed as sp
-from roaringregex_tpu.ops import scan_pallas as spl
-from roaringregex_tpu.ops import scan_swar as ssw
+from oracle_stats import assert_stats_match_oracle
 
 PATTERNS = [
     "cat|dog",
@@ -59,32 +60,24 @@ def _batch(seed=0, n=60, maxlen=40, L=48, G=16):
 @pytest.mark.parametrize("seeded", [True, False])
 def test_match_stats_parity(pattern, seeded):
     prog = compile_program(pattern)
-    spec = ssw.swar_spec(prog)
-    assert spec is not None, "every test pattern should fit s_tile=8"
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw.SwarScanner(prog, tabs)
+    assert word_spec(prog) is not None, "every test pattern fits the word tier"
+    sw = WordScanner(prog)
     data, lengths = _batch(G=prog.G)
-    len_g = lengths.reshape(-1, prog.G)
-    a = ref.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=seeded)
-    b = sw.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=seeded)
-    for name, x, y in zip(["cnt", "first", "last", "full", "any"], a, b):
-        np.testing.assert_array_equal(
-            np.asarray(x), np.asarray(y), err_msg=f"{pattern} {name}"
-        )
+    out = sw.match_stats_b(data, lengths.reshape(-1, prog.G), seeded=seeded)
+    assert_stats_match_oracle(prog, out, data, lengths, seeded, pattern)
 
 
 @pytest.mark.parametrize("pattern", PATTERNS)
 def test_reverse_hits_parity(pattern):
     prog = compile_program(pattern)
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw.SwarScanner(prog, tabs)
+    eng = ScanEngine(prog, backend="pallas")
+    orc = OracleEngine(prog.nfa)
     data, lengths = _batch(G=prog.G)
-    len_g = jnp.asarray(lengths.reshape(-1, prog.G))
-    a = np.asarray(ref.reverse_hits_b(jnp.asarray(data), len_g))
-    b = np.asarray(sw.reverse_hits_b(jnp.asarray(data), len_g))
-    np.testing.assert_array_equal(a, b[:, : a.shape[1]], err_msg=pattern)
+    sb = eng.starts_bitmap(data, lengths, data.shape[1])
+    for i in range(len(lengths)):
+        t = bytes(data[i, : lengths[i]])
+        got = {int(s) for s in np.nonzero(sb[i])[0] if s <= lengths[i]}
+        assert got == orc.starts(t), (pattern, t)
 
 
 @pytest.mark.parametrize(
@@ -92,58 +85,44 @@ def test_reverse_hits_parity(pattern):
     [p for p in PATTERNS if not compile_program(p).nullable],
 )
 def test_lazy_spans_parity(pattern):
-    prog = compile_program(pattern)
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw.SwarScanner(prog, tabs)
-    data, lengths = _batch(G=prog.G)
-    len_g = jnp.asarray(lengths.reshape(-1, prog.G))
-    s1, e1, c1 = ref.lazy_spans_b(jnp.asarray(data), len_g, cap=16)
-    s2, e2, c2 = sw.lazy_spans_b(jnp.asarray(data), len_g, cap=16)
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2), err_msg=pattern)
-    np.testing.assert_array_equal(np.asarray(s1), np.asarray(s2), err_msg=pattern)
-    np.testing.assert_array_equal(np.asarray(e1), np.asarray(e2), err_msg=pattern)
+    p = Pattern(pattern, backend="pallas")
+    assert p.engine.device_spans
+    orc = OracleEngine(p.program.nfa)
+    data, lengths = _batch(G=p.program.G)
+    texts = [bytes(data[i, : lengths[i]]) for i in range(len(lengths))]
+    got = p.finditer_batch(texts)
+    assert got == [orc.findall(t) for t in texts], pattern
 
 
 def test_spec_rejects_wide_tiles():
-    assert ssw.swar_spec(compile_program("(ab|cd)+e{2,3}fgh")) is None
-    assert ssw.swar_spec(compile_program("a{1,300}")) is None
+    # the word tier takes up to 32 states; wider automata stay packed
+    assert word_spec(compile_program("(ab|cd)+e{2,3}fgh")) is not None
+    assert word_spec(compile_program("a{1,300}")) is None
 
 
 def test_engine_selects_swar():
-    eng = ScanEngine(compile_program("cat|dog"), backend="pallas")
-    assert type(eng._pallas).__name__ == "SwarScanner"
-
-
-def test_swar_kill_switch():
-    from roaringregex_tpu.utils.config import get_config, set_config
-
-    cfg = get_config()
-    try:
-        set_config(cfg.with_(swar=False))
-        eng = ScanEngine(compile_program("cat|dog"), backend="pallas")
-        assert type(eng._pallas).__name__ == "PallasScanner"
-    finally:
-        set_config(cfg)
+    # the routing function: word kernel on the GPU, packed on the CPU
+    prog = compile_program("cat|dog")
+    assert platform.route(prog, plat="gpu") == ("pallas", "word", True)
+    assert platform.route(prog, plat="cpu") == ("packed", None, False)
+    eng = ScanEngine(prog, backend="pallas")
+    assert isinstance(eng.device_scanner, WordScanner)
+    assert eng.backend == "pallas"
 
 
 def test_engine_window_defers_to_swar():
-    # engine-level windowing must not route SwarScanner through the
-    # matmul lead>0 path; SWAR windows internally instead
-    from roaringregex_tpu.utils.config import get_config, set_config
-
+    # engine-level windowing targets the word kernel (it takes ``lead``);
+    # wide tiles (> 32 states) stay on the packed engine and never window
     cfg = get_config()
     try:
         set_config(cfg.with_(window_cols=4096))
         eng = ScanEngine(compile_program("cat|dog"), backend="pallas")
-        assert type(eng._pallas).__name__ == "SwarScanner"
-        assert eng._window_plan(4096, 32, True) is None
+        assert eng._window_plan(4096, 32, True) is not None
+        eng2 = ScanEngine(compile_program("a{1,40}"), backend="pallas")
+        assert eng2.device_scanner is None
+        assert eng2._window_plan(4096, 32, True) is None
     finally:
         set_config(cfg)
-    # wide tiles (> 32 states: past the u32-word tier too) keep the
-    # matmul scanner
-    eng2 = ScanEngine(compile_program("a{1,40}"), backend="pallas")
-    assert type(eng2._pallas).__name__ == "PallasScanner"
 
 
 def test_engine_match_stats_through_swar():
@@ -163,30 +142,20 @@ def test_engine_match_stats_through_swar():
 def test_full_length_records_no_eos_loss():
     # len == L: the EOS step is the final stream step; ensure T covers it
     prog = compile_program("ab$")
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw.SwarScanner(prog, tabs)
+    sw = WordScanner(prog)
     G = prog.G
     L = 8
     data = np.tile(np.frombuffer(b"zzzzzzab", np.uint8), (2 * G, 1))
     lengths = np.full(2 * G, L, np.int32)
-    len_g = lengths.reshape(-1, G)
-    a = ref.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    b = sw.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    assert np.asarray(b[4]).all()  # every record matches ...ab$
+    out = sw.match_stats_b(data, lengths.reshape(-1, G), seeded=True)
+    assert_stats_match_oracle(prog, out, data, lengths, True, "ab$")
+    assert np.asarray(out[4]).all()  # every record matches ...ab$
 
 
 def test_windowed_parity():
-    # L large + few records triggers the internal window split; results
-    # must equal the unwindowed matmul scanner exactly
-    from roaringregex_tpu.utils.config import get_config, set_config
-
+    # L large + few records: the engine splits records into overlapped
+    # windows for the word kernel; results must equal the unwindowed scan
     prog = compile_program("cat|dog")
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw.SwarScanner(prog, tabs)
     G = prog.G
     rng = np.random.default_rng(7)
     B, L = 2 * G, 1024
@@ -199,34 +168,25 @@ def test_windowed_parity():
     lengths = np.full(B, L, np.int32)
     lengths[3] = 0
     lengths[4] = 257
-    len_g = lengths.reshape(-1, G)
-    assert sw._swar_window(L, B, True) is not None, "window should trigger"
-    a = ref.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    b = sw.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    for name, x, y in zip(["cnt", "first", "last", "full", "any"], a, b):
-        np.testing.assert_array_equal(
-            np.asarray(x), np.asarray(y), err_msg=name
-        )
-    # window knob off -> unwindowed path, same results
     old = get_config()
     try:
-        set_config(old.with_(swar_window_cols=0))
-        assert sw._swar_window(L, B, True) is None
-        c = sw.match_stats_b(
-            jnp.asarray(data), jnp.asarray(len_g), seeded=True
-        )
-        for x, y in zip(b, c):
-            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
+        set_config(old.with_(window_cols=256))
+        eng = ScanEngine(prog, backend="pallas")
+        assert eng._window_plan(L, B, True) is not None, "window should trigger"
+        a = eng.match_stats(data, lengths, seeded=True)
+        set_config(old.with_(window_cols=0))
+        assert eng._window_plan(L, B, True) is None
+        b = eng.match_stats(data, lengths, seeded=True)
     finally:
         set_config(old)
+    for name, x, y in zip(["cnt", "first", "any"], a, b):
+        np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=name)
 
 
 def test_high_bytes_are_dead():
     # bytes >= 0x80 must not alias the BOS/EOS/dead sentinels
     prog = compile_program("a.b")  # '.' covers 0..0x7F only
-    tabs = sp.packed_tables(prog)
-    sw = ssw.SwarScanner(prog, tabs)
-    ref = spl.PallasScanner(prog, tabs)
+    sw = WordScanner(prog)
     G = prog.G
     data = np.zeros((G, 8), np.uint8)
     rows = [b"a\xfeb", b"a\xffb", b"a\xfdb", b"axb"]
@@ -234,10 +194,7 @@ def test_high_bytes_are_dead():
     for i, t in enumerate(rows):
         data[i, : len(t)] = np.frombuffer(t, np.uint8)
         lengths[i] = len(t)
-    len_g = lengths.reshape(-1, G)
-    a = ref.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    b = sw.match_stats_b(jnp.asarray(data), jnp.asarray(len_g), seeded=True)
-    for x, y in zip(a, b):
-        np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
-    anym = np.asarray(b[4]).reshape(-1)
+    out = sw.match_stats_b(data, lengths.reshape(-1, G), seeded=True)
+    assert_stats_match_oracle(prog, out, data, lengths, True, "a.b")
+    anym = np.asarray(out[4]).reshape(-1)
     assert list(anym[:4]) == [False, False, False, True]

@@ -1,21 +1,21 @@
 """Config + profiling utilities."""
 import numpy as np
 
-from roaringregex_tpu.utils import RrxConfig, ScanTimer, get_config, set_config
+from roaringregex.utils import RrxConfig, ScanTimer, get_config, set_config
 
 
 def test_config_override_roundtrip():
     base = get_config()
     try:
-        set_config(base.with_(b_blk_max=512, backend="packed"))
-        assert get_config().b_blk_max == 512
+        set_config(base.with_(long_block=512, backend="packed"))
+        assert get_config().long_block == 512
         assert get_config().backend == "packed"
         # engine consumes the override
-        from roaringregex_tpu.api import Pattern
+        from roaringregex.api import Pattern
 
         p = Pattern.__new__(Pattern)  # avoid cache; construct manually
-        from roaringregex_tpu.compiler.program import compile_program
-        from roaringregex_tpu.engine import ScanEngine
+        from roaringregex.compiler.program import compile_program
+        from roaringregex.engine import ScanEngine
 
         eng = ScanEngine(compile_program("abc"))
         assert eng.backend == "packed"
@@ -38,7 +38,7 @@ def test_scan_timer_accounting():
 
 
 def test_throughput_report_smoke():
-    from roaringregex_tpu.utils.profiling import throughput_report
+    from roaringregex.utils.profiling import throughput_report
 
     data = np.full((16, 32), ord("a"), np.uint8)
     lengths = np.full(16, 32, np.int32)

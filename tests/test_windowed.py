@@ -3,7 +3,7 @@
 Splitting long records into overlapped windows (lead=h warm-up prefix,
 window-owned ends only) must be exactly transparent for the lazy stats
 triple (cnt, first_end, any). Opt-in via RrxConfig.window_cols (default
-off on v5e — see utils/config.py); these tests force it on.
+off — see utils/config.py); these tests force it on.
 """
 import numpy as np
 import pytest
@@ -11,17 +11,16 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from roaringregex_tpu.compiler.program import compile_program  # noqa: E402
-from roaringregex_tpu.engine import ScanEngine  # noqa: E402
-from roaringregex_tpu.utils.config import get_config, set_config  # noqa: E402
+from roaringregex.compiler.program import compile_program  # noqa: E402
+from roaringregex.engine import ScanEngine  # noqa: E402
+from roaringregex.utils.config import get_config, set_config  # noqa: E402
 
 
 @pytest.fixture()
 def window_cfg():
-    # swar off: engine-level windowing targets the matmul scanner — the
-    # SWAR/word tiers window internally and _window_plan defers to them
+    # engine-level windowing targets the word kernel (it takes ``lead``)
     old = get_config()
-    set_config(old.with_(window_cols=2048, swar=False))
+    set_config(old.with_(window_cols=2048))
     yield
     set_config(old)
 

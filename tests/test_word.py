@@ -1,19 +1,22 @@
-"""SWAR u32-word scanner parity (interpret mode on CPU).
+"""Word kernel (ops/scan_word.py, Pallas-Triton; interpret mode on CPU).
 
-The word path (ops/scan_word.py) gives each record a full 32-bit state
-set (9..32-state programs, multi-pattern accept channels); it must agree
-exactly with the matmul PallasScanner on every match_stats_b output.
+The word path gives each record a full 32-bit state set (9..32-state
+programs, multi-pattern accept channels); every match_stats_b output must
+agree exactly with the oracle, and the wrapper must handle any batch
+shape: B not a multiple of the record block, L not a multiple of the
+4-byte word, empty records, anchors and accept channels.
 """
 import numpy as np
 import pytest
 
-import jax.numpy as jnp
+from roaringregex import platform
+from roaringregex.compiler.program import compile_program
+from roaringregex.engine import ScanEngine
+from roaringregex.ops import scan_word as ssw32
+from roaringregex.ops.scan_word import BLK, WordScanner
+from roaringregex.oracle.engine import OracleEngine
 
-from roaringregex_tpu.compiler.program import compile_program
-from roaringregex_tpu.engine import ScanEngine
-from roaringregex_tpu.ops import scan_packed as sp
-from roaringregex_tpu.ops import scan_pallas as spl
-from roaringregex_tpu.ops import scan_word as ssw32
+from oracle_stats import assert_stats_match_oracle
 
 # 9..32-state patterns (s_tile 16/32) plus a couple of 8-state ones (the
 # word path must be correct there too, even though the engine prefers the
@@ -61,17 +64,10 @@ def test_match_stats_parity(pattern, seeded):
     prog = compile_program(pattern)
     spec = ssw32.word_spec(prog)
     assert spec is not None, f"{pattern} should fit s_tile<=32"
-    tabs = sp.packed_tables(prog)
-    ref = spl.PallasScanner(prog, tabs)
-    sw = ssw32.WordScanner(prog, tabs)
+    sw = WordScanner(prog)
     data, lengths = _batch(G=prog.G)
-    len_g = jnp.asarray(lengths.reshape(-1, prog.G))
-    a = ref.match_stats_b(jnp.asarray(data), len_g, seeded=seeded)
-    b = sw.match_stats_b(jnp.asarray(data), len_g, seeded=seeded)
-    for name, x, y in zip(["cnt", "first", "last", "full", "any"], a, b):
-        np.testing.assert_array_equal(
-            np.asarray(x), np.asarray(y), err_msg=f"{pattern} {name}"
-        )
+    out = sw.match_stats_b(data, lengths.reshape(-1, prog.G), seeded=seeded)
+    assert_stats_match_oracle(prog, out, data, lengths, seeded, pattern)
 
 
 def test_spec_rejects_wide():
@@ -82,20 +78,23 @@ def test_engine_selects_word_tier():
     eng = ScanEngine(
         compile_program("(ab|cd)+e{2,3}fgh"), backend="pallas"
     )
-    assert type(eng._pallas).__name__ == "WordScanner"
-    # 8-state single patterns still prefer the denser 4-records/u32 tier
+    assert isinstance(eng.device_scanner, WordScanner)
+    # 8-state single patterns take the same word kernel on the GPU route
     eng8 = ScanEngine(compile_program("cat|dog"), backend="pallas")
-    assert type(eng8._pallas).__name__ == "SwarScanner"
+    assert isinstance(eng8.device_scanner, WordScanner)
+    prog = compile_program("(ab|cd)+e{2,3}fgh")
+    assert platform.route(prog, plat="gpu").kernel == "word"
+    assert platform.route(prog, plat="cpu").kernel is None
 
 
 def test_multipattern_finditer_combined_scan():
-    """finditer_batch runs ONE combined scan (lazy_spans_mb) and matches
-    per-pattern extraction exactly, nullable channels included."""
-    from roaringregex_tpu.api import MultiPattern, Pattern
+    """finditer_batch matches per-pattern extraction exactly, nullable
+    channels included, while count_batch runs ONE combined word scan."""
+    from roaringregex.api import MultiPattern, Pattern
 
     pats = ["cat|dog", "[0-9]{3}", "(er)*", "ab(cd)*e"]  # one nullable
     mp = MultiPattern(pats, backend="pallas")
-    assert getattr(mp.engine._pallas, "spanP", None) == 4
+    assert mp.engine.route.kernel == "word" and mp.engine.P == 4
     texts = [
         b"the cat sat on a dog", b"error 4041 erer", b"abcdcdcde abe",
         b"", b"x" * 25, b"cat999dogerer", b"abe abcde", b"dogcat",
@@ -107,7 +106,7 @@ def test_multipattern_finditer_combined_scan():
 
 
 def test_multipattern_finditer_greedy_fallback():
-    from roaringregex_tpu.api import MultiPattern, Pattern
+    from roaringregex.api import MultiPattern, Pattern
 
     pats = ["cat|dog", "[0-9]{3}"]
     mp = MultiPattern(pats, backend="pallas")
@@ -123,14 +122,12 @@ def test_multipattern_finditer_greedy_fallback():
 def test_multipattern_channels_parity():
     """MultiPattern through the engine (WordScanner accept channels) vs
     per-pattern single scans."""
-    from roaringregex_tpu.api import MultiPattern, Pattern
+    from roaringregex.api import MultiPattern, Pattern
 
-    # "deadbeefs|x" needs > 8 states, so the slotted multi-SWAR path
-    # (which requires EVERY pattern to fit the 8-state tile) stands
-    # aside and the combined word tier serves the channels
+    # the combined automaton's accept channels ride the word kernel
     pats = ["cat|dog", "[0-9]{3}", "deadbeefs|x", "ab(cd)*e"]
     mp = MultiPattern(pats, backend="pallas")
-    assert type(mp.engine._pallas).__name__ == "WordScanner"
+    assert isinstance(mp.engine.device_scanner, WordScanner)
     texts = [
         b"the cat sat", b"deadbeefs 404", b"abcdcde", b"x" * 30, b"",
         b"dog deadbeefs 123", b"abe", b"catdog999",
@@ -142,11 +139,10 @@ def test_multipattern_channels_parity():
 
 
 def test_word_zero_byte_class_no_bos_phantom():
-    """Classes containing byte 0 ([^a], .) must not match the BOS step's
-    zero padding byte (latent round-4 bug: signed jr < lens let the
-    pre-record step count as alive)."""
-    from roaringregex_tpu.api import Pattern
-    from roaringregex_tpu.oracle.engine import OracleEngine
+    """Classes containing byte 0 ([^a], .) must not match at the BOS
+    step, before the record's first byte."""
+    from roaringregex.api import Pattern
+    from roaringregex.oracle.engine import OracleEngine
 
     for pat in [
         "[^a]{1,3}|[ab]a{2}a?(a|bc)|0{2}(a|b)",
@@ -159,3 +155,115 @@ def test_word_zero_byte_class_no_bos_phantom():
         got = [int(x) for x in p.count_batch(texts)]
         want = [len(orc.ends(t)) for t in texts]
         assert got == want, (pat, got, want)
+
+
+# ---------------------------------------------------------------------------
+# Wrapper shapes: blocks, word padding, empty records, anchors, channels
+# ---------------------------------------------------------------------------
+
+
+def _records(texts, L):
+    data = np.zeros((len(texts), L), np.uint8)
+    lengths = np.zeros(len(texts), np.int32)
+    for i, t in enumerate(texts):
+        data[i, : len(t)] = np.frombuffer(t, np.uint8)
+        lengths[i] = len(t)
+    return data, lengths
+
+
+def test_word_batch_not_multiple_of_block():
+    """B spans two record blocks plus a ragged tail (padded internally)."""
+    prog = compile_program("cat|dog")
+    rng = np.random.default_rng(31)
+    B = 2 * BLK + 37
+    texts = [
+        rng.choice(list(b"catdogx"), int(rng.integers(0, 20)))
+        .astype(np.uint8).tobytes()
+        for _ in range(B)
+    ]
+    data, lengths = _records(texts, 20)
+    out = WordScanner(prog).match_stats_b(
+        data, lengths.reshape(-1, 1), seeded=True
+    )
+    assert np.asarray(out[0]).shape == (B, 1)
+    assert_stats_match_oracle(prog, out, data, lengths, True, "blocks")
+
+
+@pytest.mark.parametrize("L", [1, 5, 6, 7, 9])
+def test_word_length_not_multiple_of_word(L):
+    """Record widths that are not a multiple of the 4-byte word, with
+    full-length records whose EOS step lands in the padding."""
+    prog = compile_program("ab$|b")
+    texts = [b"ab"[:L], (b"x" * L)[: L - 2] + b"ab"[: min(L, 2)], b"", b"b" * L]
+    data, lengths = _records([t[:L] for t in texts], L)
+    for seeded in (True, False):
+        out = WordScanner(prog).match_stats_b(
+            data, lengths.reshape(-1, 1), seeded=seeded
+        )
+        assert_stats_match_oracle(prog, out, data, lengths, seeded, L)
+
+
+def test_word_zero_length_records():
+    """Empty records: only BOS/EOS steps run; nullable and anchored
+    programs must still report their empty match."""
+    for pat in ["a*", "^$", "a|b", "(^|x)y?"]:
+        prog = compile_program(pat)
+        data, lengths = _records([b""] * 5 + [b"a"], 8)
+        for seeded in (True, False):
+            out = WordScanner(prog).match_stats_b(
+                data, lengths.reshape(-1, 1), seeded=seeded
+            )
+            assert_stats_match_oracle(prog, out, data, lengths, seeded, pat)
+
+
+@pytest.mark.parametrize("pattern", ["^abc", "abc$", "^a(b|c)*$", "(^a|b$)"])
+def test_word_bos_eos_anchors(pattern):
+    """^ fires only at the record start and $ only at its end, also for
+    records padded to the batch width."""
+    prog = compile_program(pattern)
+    texts = [b"abc", b"xabc", b"abcx", b"a", b"ab", b"b", b"acbcb", b""]
+    data, lengths = _records(texts, 11)
+    for seeded in (True, False):
+        out = WordScanner(prog).match_stats_b(
+            data, lengths.reshape(-1, 1), seeded=seeded
+        )
+        assert_stats_match_oracle(prog, out, data, lengths, seeded, pattern)
+
+
+def test_word_multi_channel_accept():
+    """Per-channel accept masks of a combined automaton: channel p counts
+    pattern p's ends, exactly as a single-pattern scan would."""
+    from roaringregex.api import MultiPattern
+
+    pats = ["cat|dog", "[0-9]{3}", "x$", "^ab"]
+    mp = MultiPattern(pats, backend="pallas")
+    sc = mp.engine.device_scanner
+    assert isinstance(sc, WordScanner) and len(sc.wspec.acc_masks) == 4
+    texts = [b"cat 123", b"abx", b"dog9999x", b"", b"ab cat"]
+    got = mp.count_batch(texts)
+    for p, pat in enumerate(pats):
+        orc = OracleEngine.compile(pat)
+        assert [int(c) for c in got[:, p]] == [
+            len(orc.ends(t)) for t in texts
+        ], pat
+
+
+@pytest.mark.gpu
+def test_word_kernel_compiles_on_gpu(gpu):
+    """On the card the kernel is compiled (never interpreted) and agrees
+    with the packed engine."""
+    assert not platform.interpret()
+    prog = compile_program("[a-z]+\\.log$")
+    rng = np.random.default_rng(2)
+    data = rng.choice(
+        np.frombuffer(b"abz.log", np.uint8), size=(4 * BLK + 16, 77)
+    ).astype(np.uint8)  # not a multiple of the record block
+    lengths = rng.integers(0, 78, size=data.shape[0]).astype(np.int32)
+    eng = ScanEngine(prog, backend="pallas")
+    ref = ScanEngine(prog, backend="packed")
+    assert isinstance(eng.device_scanner, WordScanner)
+    for seeded in (True, False):
+        a = eng.match_stats(data, lengths, seeded=seeded)
+        b = ref.match_stats(data, lengths, seeded=seeded)
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
